@@ -1,0 +1,195 @@
+"""Model/shape configuration system.
+
+One ``ModelConfig`` per assigned architecture lives in a sibling module;
+the registry maps ``--arch <id>`` to it. Shape suites (train_4k,
+prefill_32k, decode_32k, long_500k) are defined here and paired with
+every architecture; applicability rules (e.g. long_500k only for
+sub-quadratic families) are encoded in ``shape_applicable``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field, replace
+from typing import Dict, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # dense | moe | rwkv6 | griffin | whisper | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+    activation: str = "swiglu"       # swiglu | geglu | gelu | relu_sq
+    norm_eps: float = 1e-6
+    norm_type: str = "rmsnorm"       # rmsnorm | layernorm
+    norm_offset: float = 0.0         # gemma stores rmsnorm weight as delta around 1
+    embed_scale: bool = False        # gemma multiplies embeddings by sqrt(d)
+    rope_theta: float = 10_000.0
+    tie_embeddings: bool = False
+
+    # --- MoE ---------------------------------------------------------------
+    n_experts: int = 0
+    experts_per_token: int = 0
+    capacity_factor: float = 1.25
+    moe_dispatch: str = "scatter"    # scatter (memory-light) | onehot (reference)
+    router_aux_coef: float = 0.01
+
+    # --- recurrent families --------------------------------------------------
+    # griffin: block pattern repeats (recurrent, recurrent, local_attn)
+    attn_every: int = 0              # 0 = all-attention; 3 = griffin 1:2 pattern
+    local_window: int = 0            # sliding-window size for local attention
+    conv_width: int = 4              # temporal conv in griffin recurrent block
+    rwkv_head_dim: int = 64
+
+    # --- enc-dec / multimodal -------------------------------------------------
+    encoder_layers: int = 0          # whisper encoder depth
+    encoder_seq: int = 1500          # stub frame count (whisper: 30 s @ 50 Hz)
+    vision_patches: int = 0          # stub patch count (vlm)
+
+    # --- numerics / distribution knobs (perf levers) --------------------------
+    dtype: str = "bfloat16"
+    remat: str = "full"              # none | selective | full
+    scan_layers: bool = True
+    grad_accum: int = 1              # microbatches per train step
+    sharding: str = "dp_tp"          # dp_tp | fsdp_tp
+    grad_accum_dtype: str = "float32"
+    optimizer: str = "adamw"         # adamw | adafactor
+    opt_state_dtype: str = "float32" # float32 | bfloat16 (memory lever)
+    grad_compress: bool = False      # int8 DP gradient compression
+    seq_shard_norm: bool = False     # sequence-sharded norms/embeddings (SP lever)
+
+    # ------------------------------------------------------------------ utils
+    def with_(self, **kwargs) -> "ModelConfig":
+        return replace(self, **kwargs)
+
+    @property
+    def vocab_padded(self) -> int:
+        """Embedding/unembedding table rows: padded to a multiple of 256 so
+        the vocab dim always shards over the model axis (unpadded vocabs
+        like whisper's 51866 otherwise REPLICATE every logit tensor)."""
+        return -(-self.vocab_size // 256) * 256
+
+    @property
+    def is_subquadratic(self) -> bool:
+        """True when long-context decode is architecturally tractable."""
+        return self.family in ("rwkv6", "griffin")
+
+    @property
+    def n_params(self) -> int:
+        """Approximate total parameter count (embeddings included)."""
+        d, f, L, V = self.d_model, self.d_ff, self.n_layers, self.vocab_size
+        H, KV, hd = self.n_heads, self.n_kv_heads, self.head_dim
+        embed = V * d * (1 if self.tie_embeddings else 2)
+        if self.family == "rwkv6":
+            per = 4 * d * d + 3 * d * f // 2 + 2 * d * f  # rough: tmix + cmix
+            per = 4 * d * d + 2 * d * f
+            return embed + L * per
+        attn = d * (H * hd) + 2 * d * (KV * hd) + (H * hd) * d
+        if self.family == "moe":
+            ff = self.n_experts * 3 * d * f + d * self.n_experts
+        elif self.activation in ("swiglu", "geglu"):
+            ff = 3 * d * f
+        else:
+            ff = 2 * d * f
+        per = attn + ff
+        total = embed + L * per
+        if self.family == "whisper":
+            total += self.encoder_layers * (attn + ff) + L * attn  # cross-attn
+        return total
+
+    @property
+    def n_active_params(self) -> int:
+        """Params touched per token (MoE: only routed experts)."""
+        if self.family != "moe":
+            return self.n_params
+        d, f, L = self.d_model, self.d_ff, self.n_layers
+        H, KV, hd = self.n_heads, self.n_kv_heads, self.head_dim
+        embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        attn = d * (H * hd) + 2 * d * (KV * hd) + (H * hd) * d
+        ff = self.experts_per_token * 3 * d * f + d * self.n_experts
+        return embed + L * (attn + ff)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """(runnable?, reason). long_500k only for sub-quadratic families."""
+    if shape.name == "long_500k" and not cfg.is_subquadratic:
+        return False, "full-attention arch: 500k-token decode state is quadratic-cost territory; skipped per assignment"
+    return True, ""
+
+
+# ---------------------------------------------------------------------------
+# Registry
+# ---------------------------------------------------------------------------
+
+_REGISTRY: Dict[str, ModelConfig] = {}
+
+
+def register(cfg: ModelConfig) -> ModelConfig:
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def get_config(name: str) -> ModelConfig:
+    from . import _load_all  # populate registry lazily
+
+    _load_all()
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
+    return _REGISTRY[name]
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    from . import _load_all
+
+    _load_all()
+    return dict(_REGISTRY)
+
+
+def smoke_config(name: str) -> ModelConfig:
+    """Reduced same-family config for CPU smoke tests: small depth/width,
+    few experts, tiny vocab — exercises identical code paths."""
+    cfg = get_config(name)
+    reduced = dict(
+        n_layers=2 if cfg.attn_every == 0 else 3,
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=min(cfg.n_kv_heads, 2) if cfg.n_kv_heads < cfg.n_heads else 4,
+        head_dim=16,
+        d_ff=128,
+        vocab_size=512,
+        grad_accum=1,
+        remat="none",
+        scan_layers=cfg.scan_layers,
+    )
+    if cfg.family == "moe":
+        reduced.update(n_experts=4, experts_per_token=2)
+    if cfg.family == "whisper":
+        reduced.update(encoder_layers=2, encoder_seq=32)
+    if cfg.family == "vlm":
+        reduced.update(vision_patches=8)
+    if cfg.family == "griffin":
+        reduced.update(local_window=16, n_layers=3)
+    if cfg.family == "rwkv6":
+        reduced.update(rwkv_head_dim=16)
+    return cfg.with_(**reduced)

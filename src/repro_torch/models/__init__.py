@@ -1,0 +1,5 @@
+"""Model substrate: the dense transformer family behind one Model facade."""
+
+from .model_api import Model, build_model
+
+__all__ = ["Model", "build_model"]
