@@ -26,7 +26,9 @@
 // distinct banks), the running max and sum of its rows are reduced over
 // the 8 lanes that share a row with shuffles, and the probabilities go
 // through shared memory to the P.V product, where each warp owns 8 rows
-// of the f32 output accumulator in registers (8 x D/32 per thread).
+// of the f32 output accumulator in registers (8 x ceil(D/32) per thread;
+// at D=16 half the lanes sit out that product). The head dims built are
+// those of the configs: 16 (the reduced test configs), 64, 128 and 256.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -79,12 +81,12 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const T* src, int 
   }
 }
 
-template <typename T, int DC>   // head dim D = 32 * DC
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
              T* __restrict__ o, int h, int kvh, int sq, int skv, float scale,
              int causal, int window, int q_offset) {
-  constexpr int D = 32 * DC;
+  constexpr int DC = (D + 31) / 32;   // output columns per lane
   constexpr int QLD = D + kPad;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                      // (kBQ, QLD)
@@ -193,7 +195,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     for (int j = 0; j < kBK; ++j) {
       float vv[DC];
 #pragma unroll
-      for (int i = 0; i < DC; ++i) vv[i] = vs[j * D + lane + 32 * i];
+      for (int i = 0; i < DC; ++i)
+        vv[i] = (D % 32 == 0 || lane + 32 * i < D) ? vs[j * D + lane + 32 * i] : 0.f;
 #pragma unroll
       for (int r = 0; r < 8; ++r) {
         const float p = ps[(warp * 8 + r) * kPLd + j];
@@ -215,26 +218,27 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
       const float inv = 1.f / fmaxf(l_s[row], 1e-30f);
 #pragma unroll
       for (int i = 0; i < DC; ++i)
-        ob[(size_t)(q0 + row) * D + lane + 32 * i] = from_f32<T>(acc[r][i] * inv);
+        if (D % 32 == 0 || lane + 32 * i < D)
+          ob[(size_t)(q0 + row) * D + lane + 32 * i] = from_f32<T>(acc[r][i] * inv);
     }
   }
 }
 
-template <typename T, int DC>
+template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, int h,
                    int kvh, int sq, int skv, float scale, int causal, int window,
                    int q_offset, cudaStream_t stream) {
-  const size_t bytes = smem_floats(32 * DC) * sizeof(float);
+  const size_t bytes = smem_floats(D) * sizeof(float);
   static bool configured = false;
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(flash_kernel<T, DC>,
+    cudaError_t e = cudaFuncSetAttribute(flash_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
     if (e != cudaSuccess) return e;
     configured = true;
   }
   dim3 grid((sq + kBQ - 1) / kBQ, h, b);
-  flash_kernel<T, DC><<<grid, kThreads, bytes, stream>>>(
+  flash_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), h, kvh, sq, skv, scale, causal, window, q_offset);
   return cudaGetLastError();
@@ -244,18 +248,14 @@ template <typename T>
 cudaError_t dispatch(int d, const void* q, const void* k, const void* v, void* o, int b,
                      int h, int kvh, int sq, int skv, float scale, int causal, int window,
                      int q_offset, cudaStream_t stream) {
-#define FLASH_CASE(DC)                                                                 \
-  case DC: return launch<T, DC>(q, k, v, o, b, h, kvh, sq, skv, scale, causal, window, \
-                                q_offset, stream);
-  switch (d / 32) {
-    FLASH_CASE(1)
-    FLASH_CASE(2)
-    FLASH_CASE(3)
-    FLASH_CASE(4)
-    FLASH_CASE(5)
-    FLASH_CASE(6)
-    FLASH_CASE(7)
-    FLASH_CASE(8)
+#define FLASH_CASE(D)                                                                 \
+  case D: return launch<T, D>(q, k, v, o, b, h, kvh, sq, skv, scale, causal, window, \
+                              q_offset, stream);
+  switch (d) {
+    FLASH_CASE(16)
+    FLASH_CASE(64)
+    FLASH_CASE(128)
+    FLASH_CASE(256)
     default: return cudaErrorInvalidValue;
   }
 #undef FLASH_CASE
@@ -268,7 +268,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    int causal, int window, int q_offset, int is_bf16,
                                    void* stream) {
   if (b <= 0 || h <= 0 || sq <= 0) return (int)cudaSuccess;
-  if (d % 32 != 0 || d > 256 || kvh <= 0 || h % kvh != 0) return (int)cudaErrorInvalidValue;
+  if (kvh <= 0 || h % kvh != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t e = is_bf16
       ? dispatch<__nv_bfloat16>(d, q, k, v, o, b, h, kvh, sq, skv, scale, causal, window,

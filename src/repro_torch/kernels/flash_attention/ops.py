@@ -14,6 +14,7 @@ from .._build import check, check_inputs, library, stream_of
 from .ref import attention_ref
 
 launches = 0   # kernel launches since the last reset_launch_counts()
+HEAD_DIMS = (16, 64, 128, 256)   # the widths csrc/flash_attention.cu builds
 
 
 def flash_attention(
@@ -37,8 +38,8 @@ def flash_attention(
     kvh, skv = k.shape[1], k.shape[2]
     if kvh == 0 or h % kvh:
         raise ValueError(f"flash_attention: {h} q heads on {kvh} kv heads")
-    if d % 32 or d > 256:
-        raise ValueError(f"flash_attention: head_dim {d} must be a multiple of 32, <= 256")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {d} is not one of {HEAD_DIMS}")
     for t in (q, k, v):
         if t.data_ptr() % 16:
             raise ValueError("flash_attention: operands must be 16-byte aligned")

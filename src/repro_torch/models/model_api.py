@@ -13,7 +13,7 @@ package; the Model holds the configuration and the device.
 
 from __future__ import annotations
 
-from typing import Any, Optional, Union
+from typing import Any, Union
 
 import torch
 from torch import nn
@@ -28,12 +28,16 @@ _FAMILY = {
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
-    """The device an entry point runs on; a CUDA device must exist."""
+    """The device an entry point runs on; a CUDA device must exist.
+    ``"cuda"`` resolves to the current card, as the tensors made there report."""
     device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available: the port runs on the GPU by default; "
-            "pass device='cpu' to run the plain PyTorch path on the CPU")
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available: the port runs on the GPU by default; "
+                "pass device='cpu' to run the plain PyTorch path on the CPU")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
     return device
 
 
@@ -68,9 +72,9 @@ class Model(nn.Module):
     def cache_defs(self, batch: int, max_len: int):
         return self.mod.cache_defs(self.cfg, batch, max_len)
 
-    def init_cache(self, batch: int, max_len: int, device: Optional[torch.device] = None):
-        """A zeroed cache on ``device`` (default: the model's)."""
-        gen = torch.Generator(device=device or self.device)
+    def init_cache(self, batch: int, max_len: int):
+        """A zeroed cache on the model's device."""
+        gen = torch.Generator(device=self.device)
         return init_params(self.cache_defs(batch, max_len), gen, self.cfg)
 
     def decode_step(self, params, cache, tokens, lengths):

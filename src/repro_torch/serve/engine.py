@@ -12,7 +12,10 @@ token by token through the same decode step, idle slots decode (and
 write their caches) alongside active ones, and every slot's length
 advances each step. An idle slot's length may pass ``max_len``; its
 cache writes then change nothing and its attention covers the whole
-cache, as in the JAX engine. Tensors live on the device of ``params``.
+cache, as in the JAX engine. Tensors live on the device of ``params``,
+which must be the model's. Beyond the JAX engine, ``stats.decode_calls``
+counts decode steps, prompt prefeed included, and ``last_logits`` holds
+the logits of the latest one.
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ class EngineStats:
     requests_finished: int = 0
     requests_cancelled: int = 0
     batch_occupancy_sum: float = 0.0
+    decode_calls: int = 0                # decode steps run, prompt prefeed included
 
     @property
     def mean_occupancy(self) -> float:
@@ -71,6 +75,8 @@ class ServingEngine:
         self.model = model
         self.params = params
         self.device = params["embed"].device
+        if self.device != model.device:
+            raise ValueError(f"params on {self.device}, model on {model.device}")
         self.n_slots = n_slots
         self.max_len = max_len
         self.on_token = on_token
@@ -80,10 +86,11 @@ class ServingEngine:
         self._admit: "queue.Queue[Request]" = queue.Queue()
         self._slots: List[Optional[Request]] = [None] * n_slots
         self._serve = make_serve_step(model)
-        self._cache = model.init_cache(n_slots, max_len, device=self.device)
+        self._cache = model.init_cache(n_slots, max_len)
         self._lengths = torch.zeros((n_slots,), dtype=torch.int32, device=self.device)
         self._tokens = torch.zeros((n_slots, 1), dtype=torch.int32, device=self.device)
         self._gen = torch.Generator(device=self.device).manual_seed(0)
+        self.last_logits: Optional[torch.Tensor] = None
 
     # ----------------------------------------------------------------- admit
     def submit(self, req: Request) -> None:
@@ -109,8 +116,9 @@ class ServingEngine:
         self._lengths[i] = 0
         for tok in req.prompt[:-1]:
             self._tokens[i, 0] = int(tok)
-            _, _, self._cache = self._serve(
+            _, self.last_logits, self._cache = self._serve(
                 self.params, self._cache, self._tokens, self._lengths, self._gen)
+            self.stats.decode_calls += 1
             self._lengths[i] += 1
         self._tokens[i, 0] = int(req.prompt[-1])
         self._slots[i] = req
@@ -122,8 +130,9 @@ class ServingEngine:
         active = [i for i, r in enumerate(self._slots) if r is not None]
         if not active:
             return 0
-        nxt, logits, self._cache = self._serve(
+        nxt, self.last_logits, self._cache = self._serve(
             self.params, self._cache, self._tokens, self._lengths, self._gen)
+        self.stats.decode_calls += 1
         nxt_np = nxt.cpu().numpy()
         self._tokens = nxt
         self._lengths += 1

@@ -98,7 +98,9 @@ def test_cuda_decode_matches_plain(cuda, b, h, kvh, s, d, lengths, window, dtype
     (1, 8, 1, 1000, 1000, 256, {"causal": True}),
     (1, 8, 1, 200, 1024, 256, {"causal": True, "window": 300, "q_offset": 824}),
     (2, 4, 2, 33, 45, 64, {"causal": False}),
-    (2, 4, 1, 100, 100, 96, {"causal": True, "window": 24}),
+    (2, 4, 1, 100, 100, 128, {"causal": True, "window": 24}),
+    (2, 4, 2, 33, 33, 16, {"causal": True}),
+    (1, 4, 1, 70, 90, 16, {"causal": True, "window": 24, "q_offset": 20}),
 ])
 def test_cuda_flash_matches_plain(cuda, b, h, kvh, sq, skv, d, kw, dtype):
     rng = np.random.default_rng(sq)

@@ -4,8 +4,7 @@ The port's wrapper runs its plain PyTorch version on CPU tensors; it is
 held against the JAX Pallas kernel in interpret mode and JAX's plain
 reference, on the same inputs made with numpy from a seed. Tolerances
 are those of tests/test_kernels.py: f32 1e-4, bf16 2e-2, by ``rel_err``.
-The CUDA kernel's own comparisons are the ``gpu`` cases of
-tests/test_torch_kernels.py.
+The CUDA kernel's own comparisons are in tests/test_torch_cuda.py.
 """
 
 import numpy as np

@@ -5,6 +5,7 @@ greedy tokens for the same weights and prompts."""
 import numpy as np
 import pytest
 import jax
+import torch
 
 from repro.configs import smoke_config as jax_smoke_config
 from repro.launch import serve as jax_serve
@@ -65,6 +66,25 @@ class TestServingEngine:
         together = gen([p0, p1])
         assert together[0] == gen([p0])[0]
         assert together[1] == gen([p1])[0]
+
+    def test_stats_count_decode_calls_and_keep_logits(self, model_params):
+        """Every decode step is counted, prompt prefeed included, and the
+        latest step's logits stay readable for a caller's checks."""
+        m, params = model_params
+        eng = ServingEngine(m, params, n_slots=2, max_len=48)
+        prompts = [np.arange(1, 4, dtype=np.int32), np.arange(1, 6, dtype=np.int32)]
+        for i, p in enumerate(prompts):
+            eng.submit(Request(request_id=i, prompt=p, max_new_tokens=3))
+        stats = eng.run_until_drained()
+        assert stats.decode_calls == stats.steps + sum(len(p) - 1 for p in prompts)
+        assert tuple(eng.last_logits.shape) == (2, 1, m.cfg.vocab_size)
+        assert bool(torch.isfinite(eng.last_logits).all())
+
+    def test_params_must_be_on_the_model_device(self, model_params):
+        m, params = model_params
+        moved = dict(params, embed=params["embed"].to("meta"))
+        with pytest.raises(ValueError, match="model on cpu"):
+            ServingEngine(m, moved, n_slots=2, max_len=8)
 
 
 def _serve_all(engine_cls, request_cls, model, params, prompts, n_slots, max_len):
