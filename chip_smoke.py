@@ -4,33 +4,43 @@
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the checkout with nvcc (sm_90a),
-then runs five phases and fails (non-zero exit, no result line) if any
+then runs these phases and fails (non-zero exit, no result line) if any
 check fails:
 
 1. kernel vs plain: every kernel against its plain PyTorch version at the
-   main path's shapes, f32 and bf16 (rel_err tolerances of
-   tests/test_kernels.py: attention f32 1e-4, norm f32 1e-5, bf16 2e-2);
-2. decode vs forward: gemma-2b at full width (18 layers, f32, random
+   main paths' shapes (decode attention with gemma-2b's group of 8 and
+   recurrentgemma-2b's of 10), f32 and bf16 (rel_err tolerances of
+   tests/test_kernels.py: attention f32 1e-4, norm f32 1e-5, rglru_scan
+   f32 1e-4, bf16 2e-2, rglru_scan bf16 3e-2);
+2. gemma-2b decode vs forward: full width (18 layers, f32, random
    weights from seed 0); teacher-forced decode_step over 32 tokens for 2
    sequences reproduces forward's logits to rel_err < 2e-3;
-3. serving: gemma-2b at full width in bf16 through build_model and
+3. gemma-2b serving: full width in bf16 through build_model and
    ServingEngine, 12 requests on 4 slots (max_new 16, max_len 128,
    steering on), which must drain with finite logits; then
    torch.profiler over 6 more steps with every slot decoding gives the
    device time per step by kind of kernel and its share of the step;
-4. timing: each kernel, its plain version and one PyTorch library call
-   for the same function, with CUDA events and the L2 cache flushed
-   before every launch, beside the least time the card could take;
-5. the results: a line {"kernels": [...]}, the card's name and power
+4. recurrentgemma-2b decode vs forward: full width, depth uncut (26
+   layers, f32), 32 tokens with a ring buffer that holds them all, then
+   40 tokens with local_window 16 so that the ring buffer wraps;
+5. recurrentgemma-2b serving: as phase 3, in bf16 (ring window 128);
+6. timing: each kernel, its plain version and one PyTorch library call
+   for the same function where there is one, with CUDA events and the L2
+   cache flushed before every launch, beside the least time the card
+   could take;
+7. the results: a line {"kernels": [...]}, the card's name and power
    limit, and last {"ok": true, "device": {...}}.
 
-Launch counters are zeroed just before phases 2 and 3 and read just
-after; every kernel of the phase must have run, the expected number of
-times. Needs one GPU; exits non-zero without one.
+Launch counters are zeroed just before each forward, each decode loop
+and each serving run of phases 2-5 and read just after; every kernel of
+the path must have run exactly the expected number of times. gemma-2b's
+weights are freed before recurrentgemma-2b's are made. Needs one GPU;
+exits non-zero without one.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -43,8 +53,10 @@ import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}   # bf16 tensor / f32 CUDA cores
+ELEMENTWISE = {"rmsnorm", "rglru_scan"}   # no tensor-core form: the f32 CUDA-core peak bounds them
 TOL = {("attn", torch.float32): 1e-4, ("norm", torch.float32): 1e-5,
-       ("attn", torch.bfloat16): 2e-2, ("norm", torch.bfloat16): 2e-2}
+       ("scan", torch.float32): 1e-4, ("attn", torch.bfloat16): 2e-2,
+       ("norm", torch.bfloat16): 2e-2, ("scan", torch.bfloat16): 3e-2}
 DTYPES = (torch.bfloat16, torch.float32)
 KERNEL_INFO = {
     "rmsnorm": ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
@@ -53,7 +65,22 @@ KERNEL_INFO = {
                          "src/repro/kernels/decode_attention/kernel.py:79"),
     "flash_attention": ("src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:97"),
+    "rglru_scan": ("src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
+                   "src/repro/kernels/rglru_scan/kernel.py:56"),
 }
+# Launches per layer kind of one forward and of one decode step: every
+# layer has 2 rmsnorms and the final norm 1; an attention layer runs
+# flash_attention in forward and decode_attention in decode; a recurrent
+# layer (griffin) runs rglru_scan in both.
+LAYERS = {"gemma-2b": {"attn": 18, "rec": 0}, "recurrentgemma-2b": {"attn": 8, "rec": 18}}
+
+
+def expected_launches(arch: str, forwards: int, decode_steps: int) -> dict:
+    n = LAYERS[arch]
+    return {"rmsnorm": (2 * (n["attn"] + n["rec"]) + 1) * (forwards + decode_steps),
+            "flash_attention": n["attn"] * forwards,
+            "decode_attention": n["attn"] * decode_steps,
+            "rglru_scan": n["rec"] * (forwards + decode_steps)}
 
 
 def log(msg: str) -> None:
@@ -97,22 +124,29 @@ def rmsnorm_cases(gen, dev, dtype):
 
 
 def decode_cases(gen, dev, dtype):
-    for s, lengths in ((128, [1, 37, 100, 128]), (4096, [4000, 4093, 4095, 5000])):
-        q = randn(gen, (4, 8, 256), dtype, dev)
+    # gemma-2b (8 q heads on 1 kv head): a serving cache and a long one;
+    # recurrentgemma-2b (10 on 1): its 2048-slot ring buffer and the
+    # serving run's 128-slot one
+    for h, s, lengths in ((8, 128, [1, 37, 100, 128]), (8, 4096, [4000, 4093, 4095, 5000]),
+                          (10, 2048, [1, 700, 2048, 2048]), (10, 128, [1, 37, 100, 128])):
+        q = randn(gen, (4, h, 256), dtype, dev)
         k = randn(gen, (4, 1, s, 256), dtype, dev)
         v = randn(gen, (4, 1, s, 256), dtype, dev)
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         valid = sum(min(n, s) for n in lengths)                 # cache rows read
         byts = (2 * q.numel() + 2 * valid * 256) * q.element_size() + lens.numel() * 4
-        ops = 4 * 8 * valid * 256
-        yield f"S={s},lengths={lengths}", (q, k, v, lens), {}, byts, ops
+        ops = 4 * h * valid * 256
+        yield f"H={h},S={s},lengths={lengths}", (q, k, v, lens), {}, byts, ops
 
 
 def flash_cases(gen, dev, dtype):
-    for sq, skv, kw in ((1024, 1024, dict(causal=True)),
-                        (1000, 1000, dict(causal=True)),
-                        (256, 1024, dict(causal=True, window=512, q_offset=768))):
-        q = randn(gen, (1, 8, sq, 256), dtype, dev)
+    # gemma-2b (8 q heads on 1 kv head), causal; recurrentgemma-2b (10 on
+    # 1), its local attention window of 2048 over a 4096-token prompt
+    for h, sq, skv, kw in ((8, 1024, 1024, dict(causal=True)),
+                           (8, 1000, 1000, dict(causal=True)),
+                           (8, 256, 1024, dict(causal=True, window=512, q_offset=768)),
+                           (10, 4096, 4096, dict(causal=True, window=2048))):
+        q = randn(gen, (1, h, sq, 256), dtype, dev)
         k = randn(gen, (1, 1, skv, 256), dtype, dev)
         v = randn(gen, (1, 1, skv, 256), dtype, dev)
         qp = torch.arange(sq, device=dev)[:, None] + kw.get("q_offset", 0)
@@ -122,12 +156,33 @@ def flash_cases(gen, dev, dtype):
             mask &= kp > qp - kw["window"]
         pairs = int(mask.sum())                                  # unmasked (q, k) pairs
         byts = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        ops = 4 * 8 * pairs * 256
-        yield f"Sq={sq},Skv={skv},{kw}", (q, k, v), kw, byts, ops
+        ops = 4 * h * pairs * 256
+        yield f"H={h},Sq={sq},Skv={skv},{kw}", (q, k, v), kw, byts, ops
+
+
+def rglru_cases(gen, dev, dtype):
+    # recurrentgemma-2b (D = 2560): a 2048-token prefill, a decode step of
+    # 4 slots, an odd length, and extreme decay (log_a = -30, h0 = 100)
+    for b, s, label in ((1, 2048, ""), (4, 1, ""), (2, 1000, ""), (2, 64, "log_a=-30,h0=100")):
+        shape = (b, s, 2560)
+        if label:
+            log_a = torch.full(shape, -30.0, device=dev).to(dtype)
+            x = torch.ones(shape, device=dev).to(dtype)
+            h0 = torch.full((b, 2560), 100.0, device=dev).to(dtype)
+        else:
+            log_a = -torch.rand(shape, generator=gen, device=dev).mul(2.99).add(0.01).to(dtype)
+            x = randn(gen, shape, dtype, dev)
+            h0 = randn(gen, (b, 2560), dtype, dev)
+        byts = (3 * x.numel() + 2 * h0.numel()) * x.element_size()
+        ops = 3 * x.numel()                                      # exp, multiply, add
+        yield f"B={b},S={s},D=2560{',' + label if label else ''}", (log_a, x, h0), {}, byts, ops
 
 
 def library_call(name, args, kw):
-    """One PyTorch call computing the same function (timed, never used by the port)."""
+    """One PyTorch call computing the same function (timed, never used by
+    the port), or None where there is none."""
+    if name == "rglru_scan":
+        return None                 # no single PyTorch call computes the recurrence
     if name == "rmsnorm":
         x, w = args
         return lambda: x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + kw["eps"]) * (1 + w)
@@ -158,13 +213,16 @@ def phase_kernels_vs_plain(ops, gen, dev, errors):
     for name, (kernel, plain, cases, kind) in ops.items():
         for dtype in DTYPES:
             for label, args, kw, _, _ in cases(gen, dev, dtype):
-                out = kernel(*args, **kw)
-                ref = plain(*args, **kw)
+                outs, refs = kernel(*args, **kw), plain(*args, **kw)
                 torch.cuda.synchronize()
-                require(out.shape == ref.shape and out.dtype == ref.dtype,
-                        f"{name} {label}: {out.shape}/{out.dtype} vs {ref.shape}/{ref.dtype}")
-                require(bool(torch.isfinite(out).all()), f"{name} {label}: non-finite output")
-                r, a = rel_err(out, ref), abs_err(out, ref)
+                if isinstance(outs, torch.Tensor):
+                    outs, refs = (outs,), (refs,)
+                r = a = 0.0
+                for out, ref in zip(outs, refs):
+                    require(out.shape == ref.shape and out.dtype == ref.dtype,
+                            f"{name} {label}: {out.shape}/{out.dtype} vs {ref.shape}/{ref.dtype}")
+                    require(bool(torch.isfinite(out).all()), f"{name} {label}: non-finite output")
+                    r, a = max(r, rel_err(out, ref)), max(a, abs_err(out, ref))
                 tol = TOL[(kind, dtype)]
                 errors[name]["rel"] = max(errors[name]["rel"], r)
                 errors[name]["abs"] = max(errors[name]["abs"], a)
@@ -173,41 +231,62 @@ def phase_kernels_vs_plain(ops, gen, dev, errors):
                 require(r < tol, f"{name} {label} {dtype}: rel_err {r:.3e} >= {tol:g}")
 
 
-def phase_decode_vs_forward(kernels, dev):
-    from repro_torch.configs import get_config
-    from repro_torch.models import build_model
-
-    cfg = get_config("gemma-2b").with_(dtype="float32")
-    model = build_model(cfg)
-    params = model.init(0)
-    B, S = 2, 32
-    tokens = torch.from_numpy(
-        np.random.default_rng(7).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)).to(dev)
-    kernels.reset_launch_counts()
+def decode_vs_forward(kernels, model, params, arch, B, S, dev):
+    """Teacher-forced decode_step over S tokens against one forward, with
+    the launches of each checked; returns the launches of both."""
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(
+        0, model.cfg.vocab_size, (B, S)).astype(np.int32)).to(dev)
     with torch.no_grad():
+        kernels.reset_launch_counts()
         full, _ = model.forward(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        fwd = kernels.launch_counts()
         cache = model.init_cache(B, S + 2)
+        kernels.reset_launch_counts()
         dec = []
         for t in range(S):
             logits, cache = model.decode_step(params, cache, tokens[:, t:t + 1],
                                               torch.full((B,), t, dtype=torch.int32, device=dev))
             dec.append(logits[:, 0])
         dec = torch.stack(dec, 1)
-    torch.cuda.synchronize()
-    counts = kernels.launch_counts()
-    L = cfg.n_layers
-    want = {"rmsnorm": (2 * L + 1) * (S + 1), "flash_attention": L, "decode_attention": L * S}
-    log(f"[decode vs forward] gemma-2b f32 full width, {model.n_params()} params, "
-        f"B={B} S={S}: launches {counts} (expected {want})")
-    require(counts == want, f"decode vs forward launches {counts} != {want}")
+        torch.cuda.synchronize()
+        steps = kernels.launch_counts()
+    want_fwd, want_dec = expected_launches(arch, 1, 0), expected_launches(arch, 0, S)
+    log(f"[decode vs forward] {arch} f32, {model.n_params()} params, B={B} S={S} "
+        f"local_window={model.cfg.local_window}: launches forward {fwd} (expected {want_fwd}), "
+        f"decode {steps} (expected {want_dec})")
+    require(fwd == want_fwd, f"{arch} forward launches {fwd} != {want_fwd}")
+    require(steps == want_dec, f"{arch} decode launches {steps} != {want_dec}")
     require(bool(torch.isfinite(full).all() and torch.isfinite(dec).all()),
-            "decode vs forward: non-finite logits")
+            f"{arch} decode vs forward: non-finite logits")
     err = rel_err(dec, full)
-    log(f"[decode vs forward] rel_err={err:.3e} (bound 2e-3), logits {tuple(full.shape)}")
-    require(err < 2e-3, f"decode diverges from forward: rel_err {err:.3e}")
-    del model, params, cache, full, dec, logits
-    torch.cuda.empty_cache()
+    log(f"[decode vs forward] {arch} rel_err={err:.3e} (bound 2e-3), logits {tuple(full.shape)}")
+    require(err < 2e-3, f"{arch}: decode diverges from forward: rel_err {err:.3e}")
+    return {k: fwd[k] + steps[k] for k in fwd}
+
+
+def phase_decode_vs_forward(kernels, dev, arch):
+    """Full width, depth uncut, f32, random weights from seed 0; for
+    recurrentgemma-2b a second run with local_window 16 wraps the ring."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch).with_(dtype="float32")
+    model = build_model(cfg)
+    params = model.init(0)
+    counts = decode_vs_forward(kernels, model, params, arch, 2, 32, dev)
+    if cfg.family == "griffin":
+        wrapped = build_model(cfg.with_(local_window=16))     # same weights
+        more = decode_vs_forward(kernels, wrapped, params, arch, 2, 40, dev)
+        counts = {k: counts[k] + more[k] for k in counts}
+    del model, params
+    free_memory()
     return counts
+
+
+def free_memory() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def profile_serving(engine, cfg, step_ms, steps=6):
@@ -232,7 +311,8 @@ def profile_serving(engine, cfg, step_ms, steps=6):
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     # device-side rows only (kernels, copies): an operator's row repeats its kernels' time
-    kinds = {"rmsnorm": 0.0, "decode_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    kinds = {"rmsnorm": 0.0, "decode_attention": 0.0, "rglru_scan": 0.0, "matmul": 0.0,
+             "other": 0.0}
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -241,6 +321,8 @@ def profile_serving(engine, cfg, step_ms, steps=6):
             kind = "rmsnorm"
         elif "decode_kernel" in key:
             kind = "decode_attention"
+        elif "rglru_scan_kernel" in key:
+            kind = "rglru_scan"
         elif any(t in key for t in ("gemm", "gemv", "nvjet", "cutlass", "xmma")):
             kind = "matmul"
         else:
@@ -248,19 +330,19 @@ def profile_serving(engine, cfg, step_ms, steps=6):
         kinds[kind] += ev.self_device_time_total
     busy = sum(kinds.values())
     log(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=12))
-    log("[profile] serving, 4 slots busy: " + json.dumps({
+    log(f"[profile] {cfg.name} serving, 4 slots busy: " + json.dumps({
         "steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
         "device_ms_per_step": busy / steps / 1e3,
         "device_busy_share_of_unprofiled_step": busy / steps / 1e3 / step_ms,
         "device_ms_per_step_by_kind": {k: v / steps / 1e3 for k, v in kinds.items()}}))
 
 
-def phase_serving(kernels, dev):
+def phase_serving(kernels, dev, arch):
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.serve import Request, ServingEngine
 
-    cfg = get_config("gemma-2b")                       # bf16, full width
+    cfg = get_config(arch)                             # bf16, full width
     model = build_model(cfg)
     params = model.init(0)
     with torch.no_grad():                              # warm-up: cuBLAS handles, allocator
@@ -292,10 +374,8 @@ def phase_serving(kernels, dev):
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     counts = kernels.launch_counts()
-    L = cfg.n_layers
     calls = stats.decode_calls
-    want = {"rmsnorm": (2 * L + 1) * calls, "decode_attention": L * calls,
-            "flash_attention": 0}
+    want = expected_launches(arch, 0, calls)
     ttft = [r.first_token_at - r.submitted_at for r in finished]
     result = {
         "requests": stats.requests_finished,
@@ -309,14 +389,14 @@ def phase_serving(kernels, dev):
         "wall_s": wall,
         "launches": counts,
     }
-    log("[serving] gemma-2b bf16 full width: " + json.dumps(result))
-    require(stats.requests_finished == 12 and len(finished) == 12, "serving did not drain")
+    log(f"[serving] {arch} bf16 full width: " + json.dumps(result))
+    require(stats.requests_finished == 12 and len(finished) == 12, f"{arch} serving did not drain")
     require(all(1 <= len(r.generated) <= 16 for r in finished), "bad generation lengths")
-    require(bool(finite), "serving produced non-finite logits")
-    require(counts == want, f"serving launches {counts} != {want}")
+    require(bool(finite), f"{arch} serving produced non-finite logits")
+    require(counts == want, f"{arch} serving launches {counts} != {want}")
     profile_serving(engine, cfg, result["mean_step_ms"])
     del engine, model, params
-    torch.cuda.empty_cache()
+    free_memory()
     return counts
 
 
@@ -343,11 +423,12 @@ def phase_timing(ops, gen, dev):
         for dtype in DTYPES:
             for i, (label, args, kw, byts, nops) in enumerate(cases(gen, dev, dtype)):
                 t_bytes = byts / HBM_BYTES_PER_S
-                t_ops = nops / PEAK_OPS_PER_S[dtype]
+                t_ops = nops / PEAK_OPS_PER_S[torch.float32 if name in ELEMENTWISE else dtype]
+                library = library_call(name, args, kw)
                 row = {
                     "ms": time_cold(lambda: kernel(*args, **kw), flush),
                     "plain_ms": time_cold(lambda: plain(*args, **kw), flush),
-                    "library_ms": time_cold(library_call(name, args, kw), flush),
+                    "library_ms": time_cold(library, flush) if library else None,
                     "bound_ms": 1e3 * max(t_bytes, t_ops),
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                     "bytes": byts, "operations": nops,
@@ -358,7 +439,7 @@ def phase_timing(ops, gen, dev):
     return rows
 
 
-HEADLINE = {("rmsnorm", 1), ("decode_attention", 1), ("flash_attention", 0)}
+HEADLINE = {("rmsnorm", 1), ("decode_attention", 1), ("flash_attention", 0), ("rglru_scan", 0)}
 
 
 def main() -> int:
@@ -370,6 +451,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
     t_start = time.monotonic()
@@ -391,25 +473,26 @@ def main() -> int:
         "rmsnorm": (kernels.rmsnorm, rmsnorm_ref, rmsnorm_cases, "norm"),
         "decode_attention": (kernels.decode_attention, decode_attention_ref, decode_cases, "attn"),
         "flash_attention": (kernels.flash_attention, attention_ref, flash_cases, "attn"),
+        "rglru_scan": (kernels.rglru_scan, rglru_scan_ref, rglru_cases, "scan"),
     }
     errors = {name: {"rel": 0.0, "abs": 0.0} for name in ops}
 
     t = time.monotonic()
     phase_kernels_vs_plain(ops, gen, dev, errors)
     log(f"[phase] kernel vs plain {time.monotonic() - t:.1f} s")
-    t = time.monotonic()
-    fwd_counts = phase_decode_vs_forward(kernels, dev)
-    log(f"[phase] decode vs forward {time.monotonic() - t:.1f} s")
-    t = time.monotonic()
-    serve_counts = phase_serving(kernels, dev)
-    log(f"[phase] serving {time.monotonic() - t:.1f} s")
+    by_path = {}
+    for arch in ("gemma-2b", "recurrentgemma-2b"):
+        t = time.monotonic()
+        by_path[f"{arch} decode vs forward"] = phase_decode_vs_forward(kernels, dev, arch)
+        log(f"[phase] {arch} decode vs forward {time.monotonic() - t:.1f} s")
+        t = time.monotonic()
+        by_path[f"{arch} serving"] = phase_serving(kernels, dev, arch)
+        log(f"[phase] {arch} serving {time.monotonic() - t:.1f} s")
     t = time.monotonic()
     timing = phase_timing(ops, gen, dev)
     log(f"[phase] timing {time.monotonic() - t:.1f} s")
 
-    launches = {"rmsnorm": serve_counts["rmsnorm"],
-                "decode_attention": serve_counts["decode_attention"],
-                "flash_attention": fwd_counts["flash_attention"]}
+    launches = {name: sum(counts[name] for counts in by_path.values()) for name in ops}
     for name, n in launches.items():
         require(n > 0, f"{name} was not launched on the main path")
     report = []
@@ -418,7 +501,9 @@ def main() -> int:
         row = timing[name]
         report.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": errors[name]["abs"],
+            "launches": launches[name],
+            "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
+            "max_abs_err": errors[name]["abs"],
             "max_rel_err": errors[name]["rel"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": row["shape"], "dtype": row["dtype"],

@@ -19,6 +19,7 @@ _LOADED = False
 
 ARCH_MODULES = [
     "gemma_2b",
+    "recurrentgemma_2b",
 ]
 
 
@@ -35,4 +36,5 @@ def _load_all() -> None:
 
 ARCH_IDS = [
     "gemma-2b",
+    "recurrentgemma-2b",
 ]

@@ -39,6 +39,8 @@ SIGNATURES: Dict[str, str] = {
     "decode_attention_fwd": "pppppiiiiifiip",
     # q, k, v, o, b, h, kvh, sq, skv, d, scale, causal, window, q_offset, is_bf16, stream
     "flash_attention_fwd": "ppppiiiiiifiiiip",
+    # log_a, x, h0, hs, hlast, b, s, d, is_bf16, stream
+    "rglru_scan_fwd": "pppppiiiip",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

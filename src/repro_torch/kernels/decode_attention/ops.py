@@ -13,7 +13,7 @@ import torch
 from .._build import check, check_inputs, library, stream_of
 from .ref import decode_attention_ref
 
-GROUPS = (1, 2, 3, 4, 8, 16)   # q heads per kv head the kernel is built for
+GROUPS = (1, 2, 3, 4, 8, 10, 16)   # q heads per kv head the kernel is built for
 launches = 0   # kernel launches since the last reset_launch_counts()
 
 

@@ -7,6 +7,7 @@ and cancels generations whose running score falls below a threshold.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b --requests 16
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b --device cpu
 """
 
 from __future__ import annotations

@@ -4,8 +4,10 @@ The trees are nested dicts of numpy arrays (``np.asarray`` of each JAX
 leaf), so this module needs no JAX. With ``scan_layers`` the JAX tree
 stacks every layer's parameters on a leading axis under ``"layers"``
 (``repro.models.layers.stack_defs``); the port keeps a list of per-layer
-trees, so that axis is unstacked here. bf16 arrays (numpy's ml_dtypes
-``bfloat16``) are carried through f32 without rounding.
+trees, so that axis is unstacked here. A family whose layers differ
+(griffin) is a list of per-layer trees on both sides and is carried
+across layer by layer. bf16 arrays (numpy's ml_dtypes ``bfloat16``) are
+carried through f32 without rounding.
 """
 
 from __future__ import annotations
@@ -33,9 +35,8 @@ def _load(defs: Any, tree: Any, model: Model, path: str) -> Any:
             raise ValueError(f"{path}: shape {arr.shape} != {defs.shape}")
         return _tensor(arr, torch_dtype(defs.dtype or model.cfg.dtype), model.device)
     if isinstance(defs, dict):
-        missing = set(defs) - set(tree)
-        if missing:
-            raise KeyError(f"{path}: missing {sorted(missing)}")
+        if set(defs) != set(tree):
+            raise KeyError(f"{path}: keys {sorted(tree)} != {sorted(defs)}")
         return {k: _load(v, tree[k], model, f"{path}/{k}") for k, v in defs.items()}
     if isinstance(defs, list):
         if isinstance(tree, dict):   # scanned layers: unstack the leading axis
@@ -61,9 +62,10 @@ def load_jax_params(model: Model, tree: Any) -> Any:
     return _load(model.defs, tree, model, "params")
 
 
-def load_jax_cache(model: Model, tree: Any) -> Any:
-    """The port's decode cache, on the model's device, from a JAX one."""
-    batch, _, max_len, _ = np.asarray(_first_leaf(tree)).shape[-4:]
+def load_jax_cache(model: Model, tree: Any, max_len: int) -> Any:
+    """The port's decode cache, on the model's device, from a JAX one made
+    by ``init_cache(batch, max_len)``; the batch is every leaf's first dim."""
+    batch = np.asarray(_first_leaf(tree)).shape[0]
     return _load(model.cache_defs(batch, max_len), tree, model, "cache")
 
 

@@ -4,7 +4,8 @@ The cache is updated in place (``update_cache``) rather than rebuilt by
 the one-hot blend of ``repro.models.kvcache.update_cache``; the result
 is the same, including the case that blend handles implicitly: a write
 at a position >= max_len (an idle serving slot keeps advancing) changes
-nothing. The windowed ring-buffer cache (griffin) is not ported yet.
+nothing. The windowed ring-buffer cache of local attention (griffin)
+reuses the same update at slot ``lengths % window``.
 """
 
 from __future__ import annotations
@@ -48,6 +49,26 @@ def update_cache(cache_k: torch.Tensor, cache_v: torch.Tensor,
     return cache_k, cache_v
 
 
+def _attend_one_token(
+    cfg: ModelConfig,
+    p: Dict[str, torch.Tensor],
+    cache_l: Dict[str, torch.Tensor],
+    x: torch.Tensor,                     # (B, 1, D) normed input
+    lengths: torch.Tensor,               # (B,) int32 absolute position of the token
+    slots: torch.Tensor,                 # (B,) cache row the token's k/v go to
+    valid: torch.Tensor,                 # (B,) cache rows [0, valid) attended
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    pos = lengths[:, None]
+    q = rope(project_heads(x, p["wq"]), pos, cfg.rope_theta)         # (B, 1, H, hd)
+    k = rope(project_heads(x, p["wk"]), pos, cfg.rope_theta)
+    v = project_heads(x, p["wv"])
+
+    ck, cv = update_cache(cache_l["k"], cache_l["v"], k, v, slots)
+    out = decode_attention(q[:, 0].contiguous(), ck, cv, valid.to(torch.int32))   # (B, H, hd)
+    out = merge_heads(out[:, None], p["wo"])                          # (B, 1, D)
+    return out, {"k": ck, "v": cv}
+
+
 def decode_attention_step(
     cfg: ModelConfig,
     p: Dict[str, torch.Tensor],
@@ -56,15 +77,32 @@ def decode_attention_step(
     lengths: torch.Tensor,               # (B,) int32
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """GQA attention for one new token against the cache (updated in place)."""
-    pos = lengths[:, None]
-    q = rope(project_heads(x, p["wq"]), pos, cfg.rope_theta)         # (B, 1, H, hd)
-    k = rope(project_heads(x, p["wk"]), pos, cfg.rope_theta)
-    v = project_heads(x, p["wv"])
+    return _attend_one_token(cfg, p, cache_l, x, lengths, lengths, lengths + 1)
 
-    ck, cv = update_cache(cache_l["k"], cache_l["v"], k, v, lengths)
-    out = decode_attention(
-        q[:, 0].contiguous(),                                         # (B, H, hd)
-        ck, cv, (lengths + 1).to(torch.int32),
-    )                                                                 # (B, H, hd)
-    out = merge_heads(out[:, None], p["wo"])                          # (B, 1, D)
-    return out, {"k": ck, "v": cv}
+
+# ---------------------------------------------------------------------------
+# Windowed (ring-buffer) cache for local attention (griffin)
+# ---------------------------------------------------------------------------
+
+
+def ring_cache_defs(cfg: ModelConfig, batch: int, window: int) -> Dict[str, ParamDef]:
+    """A ring buffer is an attention cache of ``window`` rows."""
+    return attn_cache_defs(cfg, batch, window)
+
+
+def ring_decode_attention_step(
+    cfg: ModelConfig,
+    p: Dict[str, torch.Tensor],
+    cache_l: Dict[str, torch.Tensor],
+    x: torch.Tensor,                     # (B, 1, D) normed input
+    lengths: torch.Tensor,               # (B,) int32
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Local attention with a fixed ``window``-slot ring buffer (updated
+    in place).
+
+    Keys are roped at their *absolute* position before storage; attention
+    over a set of (k, v) is permutation-invariant, so slot order never
+    matters and the buffer stays O(window)."""
+    window = cache_l["k"].shape[2]
+    return _attend_one_token(cfg, p, cache_l, x, lengths, lengths % window,
+                             torch.clamp_max(lengths + 1, window))

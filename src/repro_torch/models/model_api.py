@@ -1,4 +1,5 @@
-"""Uniform Model facade over the architecture families (dense so far).
+"""Uniform Model facade over the architecture families ported so far:
+dense (``transformer``) and griffin.
 
 ``build_model(cfg, device=...)`` returns a ``Model`` exposing:
   * ``defs`` / ``init`` / ``n_params`` — parameter tree declaration and
@@ -19,11 +20,12 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
-from . import transformer
+from . import griffin, transformer
 from .layers import init_params, param_count
 
 _FAMILY = {
     "dense": transformer,
+    "griffin": griffin,
 }
 
 
@@ -62,8 +64,8 @@ class Model(nn.Module):
         return param_count(self.defs)
 
     # ------------------------------------------------------------ compute
-    def forward(self, params, batch):
-        return self.mod.forward(self.cfg, params, batch)
+    def forward(self, params, batch, *, last_only: bool = False):
+        return self.mod.forward(self.cfg, params, batch, last_only=last_only)
 
     def loss(self, params, batch):
         return self.mod.loss_fn(self.cfg, params, batch)
@@ -84,5 +86,6 @@ class Model(nn.Module):
 def build_model(cfg: ModelConfig, device: Union[str, torch.device] = "cuda") -> Model:
     if cfg.family not in _FAMILY:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to PyTorch yet (dense only)")
+            f"family {cfg.family!r} is not ported to PyTorch yet "
+            f"(ported: {', '.join(sorted(_FAMILY))})")
     return Model(cfg=cfg, mod=_FAMILY[cfg.family], device=resolve_device(device))

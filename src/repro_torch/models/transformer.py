@@ -107,12 +107,15 @@ def embed_inputs(cfg: ModelConfig, params: Dict[str, Any],
     return x, positions[None].expand(x.shape[:2])
 
 
-def forward(cfg: ModelConfig, params: Dict[str, Any],
-            batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def forward(cfg: ModelConfig, params: Dict[str, Any], batch: Dict[str, torch.Tensor], *,
+            last_only: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence forward. Returns (logits, aux); aux is empty for the
-    dense family (the JAX package fills it for MoE)."""
+    dense family (the JAX package fills it for MoE). ``last_only``
+    computes the logits of the final position only."""
     x, positions = embed_inputs(cfg, params, batch)
     x = backbone(cfg, params, x, positions)
+    if last_only:
+        x = x[:, -1:]
     return unembed(x, _table(cfg, params), valid=cfg.vocab_size), {}
 
 

@@ -6,7 +6,8 @@ imports no JAX, so it runs where only PyTorch is installed:
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
 
 Tolerances are those of tests/test_kernels.py: attention f32 1e-4, norm
-f32 1e-5, bf16 2e-2, by ``rel_err``. TF32 is off for the plain versions.
+f32 1e-5, bf16 2e-2, rglru_scan f32 1e-4 and bf16 3e-2, by ``rel_err``.
+TF32 is off for the plain versions.
 """
 
 import numpy as np
@@ -18,10 +19,12 @@ from repro_torch.kernels import (
     flash_attention,
     launch_counts,
     reset_launch_counts,
+    rglru_scan,
     rmsnorm,
 )
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -80,6 +83,8 @@ def test_cuda_rmsnorm_matches_plain(cuda, shape, offset, dtype):
     (2, 4, 2, 64, 32, [40, 63], 16),
     (2, 16, 1, 100, 64, [0, 100], None),
     (3, 3, 1, 50, 16, [7, 50, 49], None),
+    (4, 10, 1, 2048, 256, [1, 700, 2048, 2048], None),
+    (4, 10, 1, 128, 256, [1, 37, 100, 128], None),
 ])
 def test_cuda_decode_matches_plain(cuda, b, h, kvh, s, d, lengths, window, dtype):
     rng = np.random.default_rng(s)
@@ -109,6 +114,56 @@ def test_cuda_flash_matches_plain(cuda, b, h, kvh, sq, skv, d, kw, dtype):
     out = flash_attention(q, k, v, **kw)
     ref = attention_ref(q, k, v, **kw)
     assert rel_err(out, ref) < attn_tol(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,d", [(4, 1, 2560), (2, 7, 100), (1, 256, 2560), (3, 256, 33)])
+def test_cuda_rglru_matches_plain(cuda, b, s, d, dtype):
+    rng = np.random.default_rng(s + d)
+    log_a, x, h0 = _on(cuda, dtype, -rng.uniform(0.01, 3.0, (b, s, d)).astype(np.float32),
+                       normal(rng, (b, s, d)), normal(rng, (b, d)))
+    reset_launch_counts()
+    hs, hlast = rglru_scan(log_a, x, h0)
+    assert launch_counts()["rglru_scan"] == 1
+    ref_hs, ref_hlast = rglru_scan_ref(log_a, x, h0)
+    tol = 3e-2 if dtype == "bfloat16" else 1e-4
+    assert hs.dtype == hlast.dtype == x.dtype
+    assert rel_err(hs, ref_hs) < tol and rel_err(hlast, ref_hlast) < tol
+
+
+@pytest.mark.gpu
+def test_cuda_rglru_strong_decay_stays_finite(cuda):
+    hs, hlast = rglru_scan(torch.full((2, 64, 2560), -30.0, device=cuda),
+                           torch.ones(2, 64, 2560, device=cuda),
+                           torch.full((2, 2560), 100.0, device=cuda))
+    assert bool(torch.isfinite(hs).all()) and bool((hs == 1.0).all())
+    assert bool((hlast == 1.0).all())
+
+
+@pytest.mark.gpu
+@torch.no_grad()
+def test_cuda_reduced_griffin_decode_matches_forward(cuda):
+    """The reduced recurrentgemma-2b on the card: every kernel of the path
+    runs, and teacher-forced decode reproduces forward (rel_err < 2e-3)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import build_model
+
+    m = build_model(smoke_config("recurrentgemma-2b").with_(dtype="float32", local_window=4))
+    p = m.init(0)
+    toks = torch.from_numpy(np.random.default_rng(7).integers(0, 512, (2, 10))
+                            .astype(np.int32)).to(cuda)
+    reset_launch_counts()
+    full, _ = m.forward(p, {"tokens": toks})
+    cache = m.init_cache(2, 12)
+    dec = []
+    for t in range(10):
+        logits, cache = m.decode_step(p, cache, toks[:, t:t + 1],
+                                      torch.full((2,), t, dtype=torch.int32, device=cuda))
+        dec.append(logits[:, 0])
+    assert launch_counts() == {"rmsnorm": 7 * 11, "flash_attention": 1,
+                               "decode_attention": 10, "rglru_scan": 2 * 11}
+    assert rel_err(torch.stack(dec, 1), full) < 2e-3
 
 
 @pytest.mark.gpu

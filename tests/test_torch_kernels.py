@@ -80,4 +80,5 @@ def test_cpu_path_launches_nothing():
     reset_launch_counts()
     x = torch.ones(2, 8)
     rmsnorm(x, torch.zeros(8))
-    assert launch_counts() == {"rmsnorm": 0, "decode_attention": 0, "flash_attention": 0}
+    assert launch_counts() == {"rmsnorm": 0, "decode_attention": 0, "flash_attention": 0,
+                               "rglru_scan": 0}

@@ -90,7 +90,7 @@ def test_prefill_matches_jax(pair, tokens):
                                       {"tokens": torch.from_numpy(toks)})
     assert rel_err(to_np(tlog), jlog) < 1e-4
     assert np.array_equal(tlen.numpy(), np.asarray(jlen))
-    jc = load_jax_cache(m, jax_tree_to_numpy(jcache))
+    jc = load_jax_cache(m, jax_tree_to_numpy(jcache), S + 4)
     for tl, jl in zip(tcache["layers"], jc["layers"]):
         assert rel_err(to_np(tl["k"]), to_np(jl["k"])) < 1e-4
         assert rel_err(to_np(tl["v"]), to_np(jl["v"])) < 1e-4
@@ -108,7 +108,7 @@ def test_teacher_forced_decode_matches_jax(pair, tokens):
         tlog, tcache = m.decode_step(p, tcache, torch.from_numpy(toks[:, t:t + 1]),
                                      torch.full((B,), t, dtype=torch.int32))
         assert rel_err(to_np(tlog), jlog) < 1e-4, t
-    jc = load_jax_cache(m, jax_tree_to_numpy(jcache))
+    jc = load_jax_cache(m, jax_tree_to_numpy(jcache), S + 2)
     assert rel_err(to_np(tcache["layers"][-1]["k"]), to_np(jc["layers"][-1]["k"])) < 1e-4
 
 
