@@ -23,7 +23,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import rglru_scan
-from .kvcache import ring_cache_defs, ring_decode_attention_step
+from .kvcache import attn_cache_defs, ring_decode_attention_step
 from .layers import (
     ParamDef,
     attention_block,
@@ -140,7 +140,7 @@ def _layer_train(cfg: ModelConfig, i: int, p: Dict[str, Any], x: torch.Tensor,
     y = apply_norm(cfg, p["ln1"], x)
     if is_attn_layer(cfg, i):
         t = attention_block(cfg, p["temporal"]["kind_attn"], y, positions,
-                            causal=True, window=cfg.local_window)
+                            window=cfg.local_window)
     else:
         t, _ = recurrent_block(cfg, p["temporal"]["kind_rec"], y,
                                _zero_rec_state(cfg, x.shape[0], x.dtype, x.device))
@@ -181,7 +181,7 @@ def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> Dict[str, Any]:
     window = min(cfg.local_window, max_len)
     for i in range(cfg.n_layers):
         if is_attn_layer(cfg, i):
-            layers.append({"attn": ring_cache_defs(cfg, batch, window)})
+            layers.append({"attn": attn_cache_defs(cfg, batch, window)})   # ring of window rows
         else:
             layers.append({
                 "conv": ParamDef((batch, cfg.conv_width - 1, cfg.d_model),

@@ -85,11 +85,6 @@ def decode_attention_step(
 # ---------------------------------------------------------------------------
 
 
-def ring_cache_defs(cfg: ModelConfig, batch: int, window: int) -> Dict[str, ParamDef]:
-    """A ring buffer is an attention cache of ``window`` rows."""
-    return attn_cache_defs(cfg, batch, window)
-
-
 def ring_decode_attention_step(
     cfg: ModelConfig,
     p: Dict[str, torch.Tensor],

@@ -177,16 +177,16 @@ def attention_block(
     x: torch.Tensor,                     # (B, S, D)
     positions: torch.Tensor,             # (B, S)
     *,
-    causal: bool = True,
     window: Optional[int] = None,
 ) -> torch.Tensor:
-    """GQA self-attention with RoPE through the flash kernel; ``window``
-    limits each query to the last ``window`` keys (local attention)."""
+    """Causal GQA self-attention with RoPE through the flash kernel;
+    ``window`` limits each query to the last ``window`` keys (local
+    attention)."""
     q, k, v = apply_qkv(p, x)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     out = flash_attention(heads_first(q), heads_first(k), heads_first(v),
-                          causal=causal, window=window).transpose(1, 2)   # (B, S, H, hd)
+                          causal=True, window=window).transpose(1, 2)     # (B, S, H, hd)
     return merge_heads(out, p["wo"])
 
 
