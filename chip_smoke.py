@@ -9,9 +9,10 @@ check fails:
 
 1. kernel vs plain: every kernel against its plain PyTorch version at the
    main paths' shapes (decode attention with gemma-2b's group of 8 and
-   recurrentgemma-2b's of 10), f32 and bf16 (rel_err tolerances of
-   tests/test_kernels.py: attention f32 1e-4, norm f32 1e-5, rglru_scan
-   f32 1e-4, bf16 2e-2, rglru_scan bf16 3e-2);
+   recurrentgemma-2b's of 10; wkv6 at rwkv6-1.6b's 32 heads of 64), f32
+   and bf16 (rel_err tolerances of tests/test_kernels.py: attention f32
+   1e-4, norm f32 1e-5, rglru_scan f32 1e-4, wkv6 f32 1e-3, bf16 2e-2,
+   rglru_scan and wkv6 bf16 3e-2);
 2. gemma-2b decode vs forward: full width (18 layers, f32, random
    weights from seed 0); teacher-forced decode_step over 32 tokens for 2
    sequences reproduces forward's logits to rel_err < 2e-3;
@@ -24,18 +25,26 @@ check fails:
    layers, f32), 32 tokens with a ring buffer that holds them all, then
    40 tokens with local_window 16 so that the ring buffer wraps;
 5. recurrentgemma-2b serving: as phase 3, in bf16 (ring window 128);
-6. timing: each kernel, its plain version and one PyTorch library call
+6. rwkv6-1.6b decode vs forward: full width, depth uncut (24 layers,
+   f32), 32 tokens for 2 sequences from the zero state, reported: in f32
+   this comparison is dominated by the model's own rounding at the first
+   positions (PERF.md §6). It is held to 2e-3 in f64, through the same
+   model code with f64 plain versions swapped in, and the kernels in f32
+   are held to 2e-3 on a continuation: from the state a 32-token prefix
+   leaves, one 32-token decode_step against 32 one-token steps;
+7. rwkv6-1.6b serving: as phase 3, in bf16;
+8. timing: each kernel, its plain version and one PyTorch library call
    for the same function where there is one, with CUDA events and the L2
    cache flushed before every launch, beside the least time the card
    could take;
-7. the results: a line {"kernels": [...]}, the card's name and power
+9. the results: a line {"kernels": [...]}, the card's name and power
    limit, and last {"ok": true, "device": {...}}.
 
 Launch counters are zeroed just before each forward, each decode loop
-and each serving run of phases 2-5 and read just after; every kernel of
-the path must have run exactly the expected number of times. gemma-2b's
-weights are freed before recurrentgemma-2b's are made. Needs one GPU;
-exits non-zero without one.
+and each serving run of phases 2-7 and read just after; every kernel of
+the path must have run exactly the expected number of times. Each
+model's weights are freed before the next model's are made. Needs one
+GPU; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -55,8 +64,9 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}   # bf16 tensor / f32 CUDA cores
 ELEMENTWISE = {"rmsnorm", "rglru_scan"}   # no tensor-core form: the f32 CUDA-core peak bounds them
 TOL = {("attn", torch.float32): 1e-4, ("norm", torch.float32): 1e-5,
-       ("scan", torch.float32): 1e-4, ("attn", torch.bfloat16): 2e-2,
-       ("norm", torch.bfloat16): 2e-2, ("scan", torch.bfloat16): 3e-2}
+       ("scan", torch.float32): 1e-4, ("wkv", torch.float32): 1e-3,
+       ("attn", torch.bfloat16): 2e-2, ("norm", torch.bfloat16): 2e-2,
+       ("scan", torch.bfloat16): 3e-2, ("wkv", torch.bfloat16): 3e-2}
 DTYPES = (torch.bfloat16, torch.float32)
 KERNEL_INFO = {
     "rmsnorm": ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
@@ -67,20 +77,26 @@ KERNEL_INFO = {
                         "src/repro/kernels/flash_attention/kernel.py:97"),
     "rglru_scan": ("src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
                    "src/repro/kernels/rglru_scan/kernel.py:56"),
+    "wkv6": ("src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
+             "src/repro/kernels/wkv6/kernel.py:84"),
 }
 # Launches per layer kind of one forward and of one decode step: every
 # layer has 2 rmsnorms and the final norm 1; an attention layer runs
 # flash_attention in forward and decode_attention in decode; a recurrent
-# layer (griffin) runs rglru_scan in both.
-LAYERS = {"gemma-2b": {"attn": 18, "rec": 0}, "recurrentgemma-2b": {"attn": 8, "rec": 18}}
+# layer (griffin) runs rglru_scan in both, and an rwkv6 layer wkv6.
+LAYERS = {"gemma-2b": {"attn": 18, "rec": 0, "wkv": 0},
+          "recurrentgemma-2b": {"attn": 8, "rec": 18, "wkv": 0},
+          "rwkv6-1.6b": {"attn": 0, "rec": 0, "wkv": 24}}
 
 
 def expected_launches(arch: str, forwards: int, decode_steps: int) -> dict:
     n = LAYERS[arch]
-    return {"rmsnorm": (2 * (n["attn"] + n["rec"]) + 1) * (forwards + decode_steps),
+    calls = forwards + decode_steps
+    return {"rmsnorm": (2 * sum(n.values()) + 1) * calls,
             "flash_attention": n["attn"] * forwards,
             "decode_attention": n["attn"] * decode_steps,
-            "rglru_scan": n["rec"] * (forwards + decode_steps)}
+            "rglru_scan": n["rec"] * calls,
+            "wkv6": n["wkv"] * calls}
 
 
 def log(msg: str) -> None:
@@ -178,10 +194,31 @@ def rglru_cases(gen, dev, dtype):
         yield f"B={b},S={s},D=2560{',' + label if label else ''}", (log_a, x, h0), {}, byts, ops
 
 
+def wkv6_cases(gen, dev, dtype):
+    # rwkv6-1.6b (H = 32, K = V = 64): a 2048-token prefill, a decode step
+    # of 4 slots, an odd length, and extreme decay (lw = -50); r, k, v in
+    # the activations' dtype, lw in [-4, -0.01], u and state0 random, all
+    # three in f32 as the model passes them
+    for b, s, label in ((1, 2048, ""), (4, 1, ""), (2, 1000, ""), (2, 64, "lw=-50")):
+        shape = (b, 32, s, 64)
+        r, k, v = (randn(gen, shape, dtype, dev, 0.5) for _ in range(3))
+        if label:
+            lw = torch.full(shape, -50.0, device=dev)
+        else:
+            lw = -torch.rand(shape, generator=gen, device=dev).mul(3.99).add(0.01)
+        u = randn(gen, (32, 64), torch.float32, dev, 0.3)
+        s0 = randn(gen, (b, 32, 64, 64), torch.float32, dev, 0.1)
+        byts = 4 * r.numel() * r.element_size() + lw.numel() * 4 + u.numel() * 4 \
+            + 2 * s0.numel() * 4                   # r, k, v, out; lw; u; state in and out
+        ops = 4 * b * 32 * s * 64 * 64            # 2 multiply-adds per state element and step
+        yield f"B={b},H=32,S={s},K=V=64{',' + label if label else ''}", \
+            (r, k, v, lw, u, s0), {}, byts, ops
+
+
 def library_call(name, args, kw):
     """One PyTorch call computing the same function (timed, never used by
     the port), or None where there is none."""
-    if name == "rglru_scan":
+    if name in ("rglru_scan", "wkv6"):
         return None                 # no single PyTorch call computes the recurrence
     if name == "rmsnorm":
         x, w = args
@@ -231,9 +268,11 @@ def phase_kernels_vs_plain(ops, gen, dev, errors):
                 require(r < tol, f"{name} {label} {dtype}: rel_err {r:.3e} >= {tol:g}")
 
 
-def decode_vs_forward(kernels, model, params, arch, B, S, dev):
+def decode_vs_forward(kernels, model, params, arch, B, S, dev, gated=True):
     """Teacher-forced decode_step over S tokens against one forward, with
-    the launches of each checked; returns the launches of both."""
+    the launches of each checked; returns the launches of both, the tokens
+    and both logits. ``gated=False`` reports the rel_err, by position too,
+    without holding it to the bound (rwkv6: see rwkv6_f64_check)."""
     tokens = torch.from_numpy(np.random.default_rng(7).integers(
         0, model.cfg.vocab_size, (B, S)).astype(np.int32)).to(dev)
     with torch.no_grad():
@@ -260,24 +299,135 @@ def decode_vs_forward(kernels, model, params, arch, B, S, dev):
     require(bool(torch.isfinite(full).all() and torch.isfinite(dec).all()),
             f"{arch} decode vs forward: non-finite logits")
     err = rel_err(dec, full)
-    log(f"[decode vs forward] {arch} rel_err={err:.3e} (bound 2e-3), logits {tuple(full.shape)}")
-    require(err < 2e-3, f"{arch}: decode diverges from forward: rel_err {err:.3e}")
-    return {k: fwd[k] + steps[k] for k in fwd}
+    bound = "bound 2e-3" if gated else "bound 2e-3, reported"
+    log(f"[decode vs forward] {arch} rel_err={err:.3e} ({bound}), logits {tuple(full.shape)}")
+    if gated:
+        require(err < 2e-3, f"{arch}: decode diverges from forward: rel_err {err:.3e}")
+    else:
+        log(f"[decode vs forward] {arch} rel_err by position: "
+            + " ".join(f"{rel_err(dec[:, t], full[:, t]):.1e}" for t in range(S)))
+    return {k: fwd[k] + steps[k] for k in fwd}, tokens, full, dec
+
+
+def rwkv6_f64_check(model, params, tokens, full32, dec32):
+    """The zero-state comparison again in float64, through the same model
+    code with float64 plain versions of wkv6, rmsnorm and the group norm
+    swapped in (the kernels take f32 and bf16 only). In f64 decode must
+    reproduce forward (bound 2e-3); the f32 forward's distance from the f64
+    one says how much of the f32 decode-vs-forward gap is the f32
+    arithmetic of this model rather than the code."""
+    from repro_torch.models import rwkv6
+
+    def wkv6_f64(r, k, v, lw, u, state0):
+        w, S = torch.exp(lw.double()), state0.double()
+        r, k, v, u = r.double(), k.double(), v.double(), u.double()[None, :, :, None]
+        out = torch.empty_like(v)
+        for t in range(v.shape[2]):
+            kv = k[:, :, t, :, None] * v[:, :, t, None, :]
+            out[:, :, t] = (r[:, :, t, :, None] * (S + u * kv)).sum(-2)
+            S = w[:, :, t, :, None] * S + kv
+        return out, S
+
+    def rms_norm_f64(x, w, eps=1e-6, offset=0.0):
+        return x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps) * (offset + w)
+
+    def group_norm_f64(x, w, H, eps=64e-5):
+        xg = x.unflatten(-1, (H, -1))
+        var = xg.var(-1, unbiased=False, keepdim=True)
+        xg = (xg - xg.mean(-1, keepdim=True)) * torch.rsqrt(var + eps)
+        return xg.flatten(-2) * w
+
+    def f64(tree):
+        if isinstance(tree, dict):
+            return {k: f64(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [f64(v) for v in tree]
+        return tree.double()
+
+    saved = rwkv6.wkv6, rwkv6.rms_norm, rwkv6._group_norm
+    rwkv6.wkv6, rwkv6.rms_norm, rwkv6._group_norm = wkv6_f64, rms_norm_f64, group_norm_f64
+    try:
+        p64 = f64(params)
+        B, S = tokens.shape
+        with torch.no_grad():
+            full, _ = model.forward(p64, {"tokens": tokens})
+            cache, dec = f64(model.init_cache(B, S)), []
+            for t in range(S):
+                # rwkv6's decode_step does not read the lengths
+                logits, cache = model.decode_step(p64, cache, tokens[:, t:t + 1], None)
+                dec.append(logits[:, 0])
+        dec = torch.stack(dec, 1)
+    finally:
+        rwkv6.wkv6, rwkv6.rms_norm, rwkv6._group_norm = saved
+    err = rel_err(dec, full)
+    log(f"[decode vs forward] {model.cfg.name} f64 plain: rel_err={err:.3e} (bound 2e-3); "
+        f"f32 forward vs f64 forward rel_err={rel_err(full32, full):.3e}, "
+        f"f32 decode vs f64 forward rel_err={rel_err(dec32, full):.3e}")
+    log(f"[decode vs forward] {model.cfg.name} f32 forward vs f64 forward by position: "
+        + " ".join(f"{rel_err(full32[:, t], full[:, t]):.1e}" for t in range(S)))
+    require(err < 2e-3, f"{model.cfg.name}: f64 decode diverges from forward: rel_err {err:.3e}")
+
+
+def continuation(kernels, model, params, arch, B, P, S, dev):
+    """decode_step runs the same layer code for any number of tokens: from
+    the state that a P-token prefix leaves, one call over S tokens against
+    S one-token calls, both through the kernels, with the launches of each
+    checked (bound 2e-3 on the logits); returns the launches of both."""
+    tokens = torch.from_numpy(np.random.default_rng(8).integers(
+        0, model.cfg.vocab_size, (B, P + S)).astype(np.int32)).to(dev)
+    lengths = torch.zeros((B,), dtype=torch.int32, device=dev)     # unused by rwkv6
+    with torch.no_grad():
+        _, warm = model.decode_step(params, model.init_cache(B, P + S), tokens[:, :P], lengths)
+        kernels.reset_launch_counts()
+        one, one_state = model.decode_step(params, warm, tokens[:, P:], lengths)
+        torch.cuda.synchronize()
+        once = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        state, dec = warm, []
+        for t in range(P, P + S):
+            logits, state = model.decode_step(params, state, tokens[:, t:t + 1], lengths)
+            dec.append(logits[:, 0])
+        dec = torch.stack(dec, 1)
+        torch.cuda.synchronize()
+        steps = kernels.launch_counts()
+    want_once, want_steps = expected_launches(arch, 1, 0), expected_launches(arch, 0, S)
+    require(once == want_once, f"{arch} {S}-token decode_step launches {once} != {want_once}")
+    require(steps == want_steps, f"{arch} decode launches {steps} != {want_steps}")
+    require(bool(torch.isfinite(one).all() and torch.isfinite(dec).all()),
+            f"{arch} continuation: non-finite logits")
+    err = rel_err(dec, one)
+    state_err = max(rel_err(a[k], b[k]) for a, b in zip(state["layers"], one_state["layers"])
+                    for k in a)
+    log(f"[decode vs forward] {arch} f32 continuation after a {P}-token prefix, B={B}: "
+        f"one {S}-token decode_step vs {S} one-token steps rel_err={err:.3e} (bound 2e-3), "
+        f"final states rel_err={state_err:.3e}; launches {once} and {steps}")
+    require(err < 2e-3, f"{arch}: continuation diverges: rel_err {err:.3e}")
+    require(state_err < 2e-3, f"{arch}: continuation states diverge: rel_err {state_err:.3e}")
+    return {k: once[k] + steps[k] for k in once}
 
 
 def phase_decode_vs_forward(kernels, dev, arch):
     """Full width, depth uncut, f32, random weights from seed 0; for
-    recurrentgemma-2b a second run with local_window 16 wraps the ring."""
+    recurrentgemma-2b a second run with local_window 16 wraps the ring. For
+    rwkv6-1.6b the zero-state comparison is reported and checked in f64,
+    and the f32 kernels are held to the bound on a continuation."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
     cfg = get_config(arch).with_(dtype="float32")
     model = build_model(cfg)
     params = model.init(0)
-    counts = decode_vs_forward(kernels, model, params, arch, 2, 32, dev)
+    rwkv = cfg.family == "rwkv6"
+    counts, tokens, full, dec = decode_vs_forward(kernels, model, params, arch, 2, 32, dev,
+                                                  gated=not rwkv)
+    if rwkv:
+        rwkv6_f64_check(model, params, tokens, full, dec)
+        more = continuation(kernels, model, params, arch, 2, 32, 32, dev)
+        counts = {k: counts[k] + more[k] for k in counts}
+    del full, dec
     if cfg.family == "griffin":
         wrapped = build_model(cfg.with_(local_window=16))     # same weights
-        more = decode_vs_forward(kernels, wrapped, params, arch, 2, 40, dev)
+        more = decode_vs_forward(kernels, wrapped, params, arch, 2, 40, dev)[0]
         counts = {k: counts[k] + more[k] for k in counts}
     del model, params
     free_memory()
@@ -311,8 +461,8 @@ def profile_serving(engine, cfg, step_ms, steps=6):
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     # device-side rows only (kernels, copies): an operator's row repeats its kernels' time
-    kinds = {"rmsnorm": 0.0, "decode_attention": 0.0, "rglru_scan": 0.0, "matmul": 0.0,
-             "other": 0.0}
+    kinds = {"rmsnorm": 0.0, "decode_attention": 0.0, "rglru_scan": 0.0, "wkv6": 0.0,
+             "matmul": 0.0, "other": 0.0}
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -323,6 +473,8 @@ def profile_serving(engine, cfg, step_ms, steps=6):
             kind = "decode_attention"
         elif "rglru_scan_kernel" in key:
             kind = "rglru_scan"
+        elif "wkv6_kernel" in key:
+            kind = "wkv6"
         elif any(t in key for t in ("gemm", "gemv", "nvjet", "cutlass", "xmma")):
             kind = "matmul"
         else:
@@ -439,7 +591,8 @@ def phase_timing(ops, gen, dev):
     return rows
 
 
-HEADLINE = {("rmsnorm", 1), ("decode_attention", 1), ("flash_attention", 0), ("rglru_scan", 0)}
+HEADLINE = {("rmsnorm", 1), ("decode_attention", 1), ("flash_attention", 0), ("rglru_scan", 0),
+            ("wkv6", 0)}
 
 
 def main() -> int:
@@ -453,6 +606,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.kernels.wkv6.ref import wkv6_ref
 
     t_start = time.monotonic()
     lib = _build.build(verbose=True)
@@ -474,6 +628,7 @@ def main() -> int:
         "decode_attention": (kernels.decode_attention, decode_attention_ref, decode_cases, "attn"),
         "flash_attention": (kernels.flash_attention, attention_ref, flash_cases, "attn"),
         "rglru_scan": (kernels.rglru_scan, rglru_scan_ref, rglru_cases, "scan"),
+        "wkv6": (kernels.wkv6, wkv6_ref, wkv6_cases, "wkv"),
     }
     errors = {name: {"rel": 0.0, "abs": 0.0} for name in ops}
 
@@ -481,7 +636,7 @@ def main() -> int:
     phase_kernels_vs_plain(ops, gen, dev, errors)
     log(f"[phase] kernel vs plain {time.monotonic() - t:.1f} s")
     by_path = {}
-    for arch in ("gemma-2b", "recurrentgemma-2b"):
+    for arch in ("gemma-2b", "recurrentgemma-2b", "rwkv6-1.6b"):
         t = time.monotonic()
         by_path[f"{arch} decode vs forward"] = phase_decode_vs_forward(kernels, dev, arch)
         log(f"[phase] {arch} decode vs forward {time.monotonic() - t:.1f} s")

@@ -20,6 +20,7 @@ _LOADED = False
 ARCH_MODULES = [
     "gemma_2b",
     "recurrentgemma_2b",
+    "rwkv6_16b",
 ]
 
 
@@ -37,4 +38,5 @@ def _load_all() -> None:
 ARCH_IDS = [
     "gemma-2b",
     "recurrentgemma-2b",
+    "rwkv6-1.6b",
 ]

@@ -15,13 +15,15 @@ from .decode_attention import ops as _decode_ops
 from .flash_attention import ops as _flash_ops
 from .rglru_scan import ops as _rglru_ops
 from .rmsnorm import ops as _rmsnorm_ops
+from .wkv6 import ops as _wkv6_ops
 from .decode_attention.ops import decode_attention
 from .flash_attention.ops import flash_attention
 from .rglru_scan.ops import rglru_scan
 from .rmsnorm.ops import rmsnorm
+from .wkv6.ops import wkv6
 
 _OPS = {"rmsnorm": _rmsnorm_ops, "decode_attention": _decode_ops,
-        "flash_attention": _flash_ops, "rglru_scan": _rglru_ops}
+        "flash_attention": _flash_ops, "rglru_scan": _rglru_ops, "wkv6": _wkv6_ops}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -34,5 +36,5 @@ def reset_launch_counts() -> None:
         mod.launches = 0
 
 
-__all__ = ["flash_attention", "decode_attention", "rglru_scan", "rmsnorm",
+__all__ = ["flash_attention", "decode_attention", "rglru_scan", "rmsnorm", "wkv6",
            "launch_counts", "reset_launch_counts"]

@@ -41,6 +41,8 @@ SIGNATURES: Dict[str, str] = {
     "flash_attention_fwd": "ppppiiiiiifiiiip",
     # log_a, x, h0, hs, hlast, b, s, d, is_bf16, stream
     "rglru_scan_fwd": "pppppiiiip",
+    # r, k, v, lw, u, state0, out, state, b, h, s, k, v, is_bf16, stream
+    "wkv6_fwd": "ppppppppiiiiiip",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

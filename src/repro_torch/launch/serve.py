@@ -8,6 +8,7 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b --requests 16
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b --device cpu
 """
 
 from __future__ import annotations

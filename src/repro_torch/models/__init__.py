@@ -1,4 +1,4 @@
-"""Model substrate: the dense and griffin families behind one Model facade."""
+"""Model substrate: the dense, griffin and rwkv6 families behind one Model facade."""
 
 from .model_api import Model, build_model
 

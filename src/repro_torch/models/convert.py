@@ -4,9 +4,10 @@ The trees are nested dicts of numpy arrays (``np.asarray`` of each JAX
 leaf), so this module needs no JAX. With ``scan_layers`` the JAX tree
 stacks every layer's parameters on a leading axis under ``"layers"``
 (``repro.models.layers.stack_defs``); the port keeps a list of per-layer
-trees, so that axis is unstacked here. A family whose layers differ
-(griffin) is a list of per-layer trees on both sides and is carried
-across layer by layer. bf16 arrays (numpy's ml_dtypes ``bfloat16``) are
+trees, so that axis is unstacked here, in parameters and decode caches
+alike (gemma-2b's KV cache and rwkv6's recurrent state are stacked). A
+family whose layers differ (griffin) is a list of per-layer trees on both
+sides and is carried across layer by layer. bf16 arrays (numpy's ml_dtypes ``bfloat16``) are
 carried through f32 without rounding.
 """
 
@@ -62,14 +63,9 @@ def load_jax_params(model: Model, tree: Any) -> Any:
     return _load(model.defs, tree, model, "params")
 
 
-def load_jax_cache(model: Model, tree: Any, max_len: int) -> Any:
+def load_jax_cache(model: Model, tree: Any, batch: int, max_len: int) -> Any:
     """The port's decode cache, on the model's device, from a JAX one made
-    by ``init_cache(batch, max_len)``; the batch is every leaf's first dim."""
-    batch = np.asarray(_first_leaf(tree)).shape[0]
+    by ``init_cache(batch, max_len)``. The caller names ``batch``, as it
+    names ``max_len``: a stacked (``scan_layers``) JAX tree has the layer
+    count, not the batch, on its leaves' first axis."""
     return _load(model.cache_defs(batch, max_len), tree, model, "cache")
-
-
-def _first_leaf(tree: Any) -> Any:
-    while isinstance(tree, (dict, list, tuple)):
-        tree = next(iter(tree.values())) if isinstance(tree, dict) else tree[0]
-    return tree

@@ -1,5 +1,5 @@
 """Uniform Model facade over the architecture families ported so far:
-dense (``transformer``) and griffin.
+dense (``transformer``), griffin and rwkv6.
 
 ``build_model(cfg, device=...)`` returns a ``Model`` exposing:
   * ``defs`` / ``init`` / ``n_params`` — parameter tree declaration and
@@ -20,12 +20,13 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
-from . import griffin, transformer
+from . import griffin, rwkv6, transformer
 from .layers import init_params, param_count
 
 _FAMILY = {
     "dense": transformer,
     "griffin": griffin,
+    "rwkv6": rwkv6,
 }
 
 

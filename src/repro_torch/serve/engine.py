@@ -12,14 +12,14 @@ token by token through the same decode step, idle slots decode (and
 write their caches) alongside active ones, and every slot's length
 advances each step. An idle slot's length may pass ``max_len``; its
 cache writes then change nothing and its attention covers the whole
-cache, as in the JAX engine. With a recurrent family (griffin) the JAX
-engine's behaviour is kept as well, though it is not isolation: every
-prefeed step also advances the other slots' recurrent states, and
-admitting a request resets its slot's length but not its recurrent
-state (tests/test_torch_griffin.py). Tensors live on the device of ``params``,
-which must be the model's. Beyond the JAX engine, ``stats.decode_calls``
-counts decode steps, prompt prefeed included, and ``last_logits`` holds
-the logits of the latest one.
+cache, as in the JAX engine. With the recurrent families (griffin,
+rwkv6) the JAX engine's behaviour is kept as well, though it is not
+isolation: every prefeed step also advances the other slots' recurrent
+states, and admitting a request resets its slot's length but not its
+recurrent state (tests/test_torch_griffin.py, tests/test_torch_rwkv6.py).
+Tensors live on the device of ``params``, which must be the model's.
+Beyond the JAX engine, ``stats.decode_calls`` counts decode steps, prompt
+prefeed included, and ``last_logits`` holds the logits of the latest one.
 """
 
 from __future__ import annotations
@@ -115,9 +115,10 @@ class ServingEngine:
 
         Other slots' KV caches are unaffected: their spurious cache writes
         land at the position their *next* real token will overwrite, and
-        their outputs are discarded. Their recurrent states (griffin) do
-        advance, as in the JAX engine. The last prompt token is NOT prefed — it becomes
-        slot i's current input so the next engine step generates from it."""
+        their outputs are discarded. Their recurrent states (recurrent
+        families) do advance, as in the JAX engine. The last prompt token
+        is NOT prefed — it becomes slot i's current input so the next
+        engine step generates from it."""
         self._lengths[i] = 0
         for tok in req.prompt[:-1]:
             self._tokens[i, 0] = int(tok)

@@ -6,7 +6,8 @@ imports no JAX, so it runs where only PyTorch is installed:
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
 
 Tolerances are those of tests/test_kernels.py: attention f32 1e-4, norm
-f32 1e-5, bf16 2e-2, rglru_scan f32 1e-4 and bf16 3e-2, by ``rel_err``.
+f32 1e-5, bf16 2e-2, rglru_scan f32 1e-4 and bf16 3e-2, wkv6 f32 1e-3 and
+bf16 3e-2, by ``rel_err``.
 TF32 is off for the plain versions.
 """
 
@@ -21,11 +22,13 @@ from repro_torch.kernels import (
     reset_launch_counts,
     rglru_scan,
     rmsnorm,
+    wkv6,
 )
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.wkv6.ref import wkv6_ref
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -162,7 +165,68 @@ def test_cuda_reduced_griffin_decode_matches_forward(cuda):
                                       torch.full((2,), t, dtype=torch.int32, device=cuda))
         dec.append(logits[:, 0])
     assert launch_counts() == {"rmsnorm": 7 * 11, "flash_attention": 1,
-                               "decode_attention": 10, "rglru_scan": 2 * 11}
+                               "decode_attention": 10, "rglru_scan": 2 * 11, "wkv6": 0}
+    assert rel_err(torch.stack(dec, 1), full) < 2e-3
+
+
+def _wkv6_inputs(cuda, dtype, b, h, s, kd, lw_const=None, seed=0):
+    rng = np.random.default_rng(seed)
+    r, k, v = _on(cuda, dtype, *(normal(rng, (b, h, s, kd), 0.5) for _ in range(3)))
+    lw = (np.full((b, h, s, kd), lw_const, np.float32) if lw_const is not None
+          else -rng.uniform(0.01, 4.0, (b, h, s, kd)).astype(np.float32))
+    lw, u, s0 = _on(cuda, "float32", lw, normal(rng, (h, kd), 0.3),
+                    normal(rng, (b, h, kd, kd), 0.1))
+    return r, k, v, lw, u, s0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,s,kd,lw_const", [
+    (4, 32, 1, 64, None), (2, 4, 7, 16, None), (1, 32, 130, 64, None), (2, 3, 130, 40, None),
+    (1, 2, 130, 64, -50.0),
+])
+def test_cuda_wkv6_matches_plain(cuda, b, h, s, kd, lw_const, dtype):
+    args = _wkv6_inputs(cuda, dtype, b, h, s, kd, lw_const, seed=s + kd)
+    reset_launch_counts()
+    out, state = wkv6(*args)
+    assert launch_counts()["wkv6"] == 1
+    ref_out, ref_state = wkv6_ref(*args)
+    tol = 3e-2 if dtype == "bfloat16" else 1e-3
+    assert out.dtype == args[2].dtype and state.dtype == torch.float32
+    assert bool(torch.isfinite(out).all() and torch.isfinite(state).all())
+    assert rel_err(out, ref_out) < tol and rel_err(state, ref_state) < tol
+
+
+@pytest.mark.gpu
+def test_cuda_wkv6_refuses_a_bf16_state(cuda):
+    r, k, v, lw, u, s0 = _wkv6_inputs(cuda, "bfloat16", 1, 2, 4, 16)
+    with pytest.raises(TypeError, match="float32"):
+        wkv6(r, k, v, lw.bfloat16(), u.bfloat16(), s0.bfloat16())
+
+
+@pytest.mark.gpu
+@torch.no_grad()
+def test_cuda_reduced_rwkv6_decode_matches_forward(cuda):
+    """The reduced rwkv6-1.6b on the card: wkv6 and rmsnorm run once per
+    layer (and rmsnorm once more for the final norm) in forward and in
+    every decode step, and decode reproduces forward (rel_err < 2e-3)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import build_model
+
+    m = build_model(smoke_config("rwkv6-1.6b").with_(dtype="float32"))
+    p = m.init(0)
+    toks = torch.from_numpy(np.random.default_rng(7).integers(0, 512, (3, 10))
+                            .astype(np.int32)).to(cuda)
+    reset_launch_counts()
+    full, _ = m.forward(p, {"tokens": toks})
+    cache = m.init_cache(3, 12)
+    dec = []
+    for t in range(10):
+        logits, cache = m.decode_step(p, cache, toks[:, t:t + 1],
+                                      torch.full((3,), t, dtype=torch.int32, device=cuda))
+        dec.append(logits[:, 0])
+    assert launch_counts() == {"rmsnorm": 5 * 11, "flash_attention": 0,
+                               "decode_attention": 0, "rglru_scan": 0, "wkv6": 2 * 11}
     assert rel_err(torch.stack(dec, 1), full) < 2e-3
 
 

@@ -55,4 +55,4 @@ def test_kernel_modules_import_without_a_toolkit():
 
     assert _build._LIB is None or torch.cuda.is_available()
     assert {p.name for p in _build.sources()} == {
-        "rmsnorm.cu", "decode_attention.cu", "flash_attention.cu", "rglru_scan.cu"}
+        "rmsnorm.cu", "decode_attention.cu", "flash_attention.cu", "rglru_scan.cu", "wkv6.cu"}

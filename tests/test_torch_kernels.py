@@ -81,4 +81,4 @@ def test_cpu_path_launches_nothing():
     x = torch.ones(2, 8)
     rmsnorm(x, torch.zeros(8))
     assert launch_counts() == {"rmsnorm": 0, "decode_attention": 0, "flash_attention": 0,
-                               "rglru_scan": 0}
+                               "rglru_scan": 0, "wkv6": 0}

@@ -90,7 +90,7 @@ def test_prefill_matches_jax(pair, tokens):
                                       {"tokens": torch.from_numpy(toks)})
     assert rel_err(to_np(tlog), jlog) < 1e-4
     assert np.array_equal(tlen.numpy(), np.asarray(jlen))
-    jc = load_jax_cache(m, jax_tree_to_numpy(jcache), S + 4)
+    jc = load_jax_cache(m, jax_tree_to_numpy(jcache), B, S + 4)
     for tl, jl in zip(tcache["layers"], jc["layers"]):
         assert rel_err(to_np(tl["k"]), to_np(jl["k"])) < 1e-4
         assert rel_err(to_np(tl["v"]), to_np(jl["v"])) < 1e-4
@@ -108,8 +108,39 @@ def test_teacher_forced_decode_matches_jax(pair, tokens):
         tlog, tcache = m.decode_step(p, tcache, torch.from_numpy(toks[:, t:t + 1]),
                                      torch.full((B,), t, dtype=torch.int32))
         assert rel_err(to_np(tlog), jlog) < 1e-4, t
-    jc = load_jax_cache(m, jax_tree_to_numpy(jcache), S + 2)
+    jc = load_jax_cache(m, jax_tree_to_numpy(jcache), B, S + 2)
     assert rel_err(to_np(tcache["layers"][-1]["k"]), to_np(jc["layers"][-1]["k"])) < 1e-4
+
+
+@torch.no_grad()
+@pytest.mark.parametrize("fill", ["prefill", "decode"])
+def test_jax_cache_loads_at_a_batch_other_than_the_layer_count(pair, fill):
+    """The JAX cache is stacked (leaves (n_layers, B, ...)); at B = 3 with
+    2 layers, a batch read off a leaf's first axis would be the layer
+    count. The loaded cache equals the port's own after the same steps."""
+    jm, jp, m, p = pair
+    b = 3
+    assert b != m.cfg.n_layers and m.cfg.scan_layers
+    toks = np.random.default_rng(11).integers(0, m.cfg.vocab_size, (b, 6)).astype(np.int32)
+    if fill == "prefill":
+        _, jcache, _ = jax_tmod.prefill(jm.cfg, jp, jm.init_cache(b, 8),
+                                        {"tokens": jnp.asarray(toks)})
+        _, tcache, _ = tmod.prefill(m.cfg, p, m.init_cache(b, 8),
+                                    {"tokens": torch.from_numpy(toks)})
+    else:
+        jcache, tcache = jm.init_cache(b, 8), m.init_cache(b, 8)
+        for t in range(toks.shape[1]):
+            _, jcache = jm.decode_step(jp, jcache, jnp.asarray(toks[:, t:t + 1]),
+                                       jnp.full((b,), t, jnp.int32))
+            _, tcache = m.decode_step(p, tcache, torch.from_numpy(toks[:, t:t + 1]),
+                                      torch.full((b,), t, dtype=torch.int32))
+    jc = load_jax_cache(m, jax_tree_to_numpy(jcache), b, 8)
+    assert len(jc["layers"]) == m.cfg.n_layers
+    for tl, jl in zip(tcache["layers"], jc["layers"]):
+        want = (b, m.cfg.n_kv_heads, 8, m.cfg.head_dim)
+        assert tuple(jl["k"].shape) == tuple(tl["k"].shape) == want
+        assert rel_err(to_np(tl["k"]), to_np(jl["k"])) < 1e-4
+        assert rel_err(to_np(tl["v"]), to_np(jl["v"])) < 1e-4
 
 
 @torch.no_grad()
